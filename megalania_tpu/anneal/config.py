@@ -18,7 +18,7 @@ MAX_WIDE_BLOCK = 64 << 20
 class AnnealConfig:
     # LZMA properties (reference: lc=lp=pb=0, main.c:45).  lc>0 (literal
     # context bits of the previous byte, xz's default is lc=3) is
-    # supported on the XLA kernel path — a ratio lever on text the
+    # supported by both repair kernels — a ratio lever on text the
     # reference binary lacks entirely (lzma_packet_encoder.c:113 todo).
     lc: int = 0
     lp: int = 0
@@ -31,7 +31,7 @@ class AnnealConfig:
     # lockstep iterations per epoch-restart.  The reference restarts
     # every n MOVES (main.c:70); with C lockstep chains an epoch of
     # 16n/C iterations reseeds from the global best every ~16n moves —
-    # measured the dominant matched-budget ratio lever (PERF.md r3:
+    # measured the dominant matched-budget ratio lever (earlier round:
     # restarting ~20x per reference budget closed most of the gap to
     # the reference binary).  None = this scaled default; a block
     # length n is the old once-per-budget behavior (iters_per_epoch=n).
@@ -43,14 +43,14 @@ class AnnealConfig:
     force_best_prob: float = 0.125     # 1/8 forced best (neighbour.c:65)
     boundary_prob: float = 0.5         # boundary-move coin (neighbour.c:122)
 
-    # candidate tables (TPU-native: dense Pareto tables, match/candidates.py)
+    # candidate tables (dense Pareto tables, match/candidates.py)
     max_candidates: int = 16
     max_walk: int = 96
     sublens: int = 3                   # lengths evaluated per candidate
     # optimum-parse initializer (native Viterbi, match/optparse_native):
     # the DP is host-side, so it affords a much WIDER Pareto table than
-    # the anneal kernels should carry in VMEM, plus dense 2..273 length
-    # enumeration.  Measured at the 64 KiB design point (PERF.md r5):
+    # the anneal's per-position one, plus dense 2..273 length
+    # enumeration.  Measured at the 64 KiB design point (earlier round):
     # seed quality keeps improving to M=64/walk=1024; window 512 B price
     # snapshots track the adaptive model closely.
     opt_candidates: int = 64
@@ -65,12 +65,12 @@ class AnnealConfig:
     # xz-class parse quality; the annealer becomes a strict refiner), or
     # "mixed_opt" (optimal/literal chain split).  "optimal" is the
     # r5 default: the native Viterbi seed dominated every measured
-    # scale (2 KiB slices through 1 MiB blocks, PERF.md r5).
+    # scale (2 KiB slices through 1 MiB blocks, earlier round).
     init: str = "optimal"
     # fraction of chains seeded from the greedy parse under init="mixed"
     # (rounded to eighths; the rest start all-literals).  0.5 is the
     # historical half/half; lower favors text, higher favors binary
-    # (PERF.md r3: the mixed tradeoff was binary -4% / text +1%).
+    # (earlier round: the mixed tradeoff was binary -4% / text +1%).
     mixed_greedy_frac: float = 0.5
 
     # acceptance rule: "cooled" = the reference's cooling transition
@@ -78,13 +78,13 @@ class AnnealConfig:
     # weak starts that need escapes; "greedy" = accept only strict
     # improvements — right for strong seeds (measured: from an optimum-
     # parse seed the cooled schedule's exploratory acceptances are net
-    # destructive, PERF_64K r4: full budget ended WORSE than 25%);
+    # destructive in an earlier round: full budget ended WORSE than 25%);
     # "mixed" = an acceptance RACE — even global chain ids run cooled,
     # odd run greedy, sharing one global best (restart reseeds cross-
     # pollinate the arms).  Measured per-file winners split between the
     # two rules at matched budget under the PRE-sweep seeds; with the
     # window-swept seeds the full-width cooled rule won or tied every
-    # corpus file (PERF.md r5), so "cooled" stays the default and the
+    # corpus file (earlier round), so "cooled" stays the default and the
     # race remains an option for unknown data.
     accept: str = "cooled"
 
@@ -94,9 +94,9 @@ class AnnealConfig:
     #   (best-of-P before acceptance; the reference costs 1, main.c:78)
     block_size: int = 1 << 16          # block sharding unit (<= 1 MiB)
 
-    # kernel selection for the fused repair+cost pass
-    kernel: str = "auto"               # "auto" | "xla" | "pallas2"
-    ranker: str = "auto"               # "auto" | "kernel" | "xla"
+    # kernel for the fused repair+cost pass: "auto" (the CUDA walk on a
+    # GPU backend, the XLA scan elsewhere), "cuda" or "xla"
+    kernel: str = "auto"
 
     # mutation-site distribution: "byte" picks a byte position (site =
     # containing/following live packet, weights by preceding length);
@@ -123,9 +123,6 @@ class AnnealConfig:
     # packet_slab_neighbour.c:104-109 — measured better or neutral on
     # every corpus file) or "litsrep" (plain literal/short-rep)
     lrep_fallback: str = "match"
-    chain_block: int = 128             # chains per Pallas kernel grid step
-    #   (128 keeps the n=2048 working set within the 16 MiB VMEM budget:
-    #    slabT in+out + probs + candidate tables ~ 6 MiB at cb=128)
 
     seed: int = 1673551                # reference seed (main.c:68)
 
@@ -152,12 +149,8 @@ class AnnealConfig:
             raise ValueError("opt_* fields must be >= 1")
         if self.opt_window < 0:
             raise ValueError("opt_window must be >= 0 (0 = auto sweep)")
-        if self.chain_block % 8 != 0:
-            raise ValueError("chain_block must be a sublane multiple (8)")
-        if self.kernel not in ("auto", "xla", "pallas2"):
+        if self.kernel not in ("auto", "xla", "cuda"):
             raise ValueError(f"unknown kernel {self.kernel!r}")
-        if self.ranker not in ("auto", "kernel", "xla"):
-            raise ValueError(f"unknown ranker {self.ranker!r}")
         if self.site_mode not in ("byte", "packet"):
             raise ValueError(f"unknown site_mode {self.site_mode!r}")
         if self.site_schedule not in ("sweep", "random"):

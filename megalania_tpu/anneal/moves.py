@@ -10,9 +10,9 @@ Mirrors the reference move distribution
     as in top_k_packet_finder.c:115), choice = max of `bias_draws`
     uniforms with a forced-best escape, matching neighbour.c:56-72.
 
-TPU-native difference: candidates come from the precomputed dense Pareto
-table plus rep-stack LCE probes, and are *ranked* under the chain's
-latest full-pass probability state (recorded ctx/dists at the site, final
+Difference from the reference: candidates come from the precomputed
+dense Pareto table plus rep-stack LCE probes, and are *ranked* under the
+chain's latest full-pass probability state (recorded ctx/dists at the site, final
 probs of the last pass) instead of a freshly re-derived site state.  The
 ranking is a proposal heuristic only — acceptance always uses the exact
 cost from the repair scan — so the cost==size invariant is untouched.
@@ -36,10 +36,10 @@ def _sublens(maxlen, k: int = SUBLENS):
     """[k] candidate lengths for one entry, duplicates masked.
 
     The reference enumerates EVERY length 2..ext per occurrence
-    (/root/reference/src/substring_enumerator.c:85-105); a dense sweep is
-    too wide for the TPU candidate tensor, so k spread points cover the
-    range: the max, near-max cuts (the usual optima), fractions, and the
-    minimum.  k=3 reproduces the historical {m, 2m/3, 2} exactly."""
+    (/root/reference/src/substring_enumerator.c:85-105); a dense sweep
+    is too wide for a fixed-width candidate tensor, so k spread points
+    cover the range: the max, near-max cuts (the usual optima),
+    fractions, and the minimum.  k=3 reproduces the historical {m, 2m/3, 2} exactly."""
     m = maxlen
     two = jnp.full_like(m, 2)
     gens = [
@@ -124,16 +124,15 @@ def gather_candidates(q, rec_dists, data, rank, sparse, cand_dist, cand_len,
 
 
 def rank_candidates(cands: Candidates, rank_probs, rec_ctx, rec_dists,
-                    byte, match_byte, log2, f2p, prev_byte=0, lc: int = 0):
+                    byte, match_byte, log2, prev_byte=0, lc: int = 0):
     """Amortized bit cost (cost // len) per candidate under ranking state.
 
-    rank_probs is the class-packed layout (ops/problayout.py) — the
-    same array the fused kernel emits, so the TPU path never reshuffles
-    probabilities; f2p is the flat->packed slot map (traced arg)."""
+    rank_probs is the chain's flat probability row (ops/tables.py), the
+    snapshot the repair pass emitted."""
     def one(t, d, l):
         plan = bitplan.make_bit_plan(t, d, l, rec_ctx, rec_dists, byte,
                                      match_byte, prev_byte=prev_byte, lc=lc)
-        return bitplan.plan_cost_packed(rank_probs, plan, log2, f2p, lc=lc)
+        return bitplan.plan_cost(rank_probs, plan, log2, lc=lc)
 
     costs = jax.vmap(one)(cands.ptype, cands.dist, cands.length)
     metric = costs // jnp.maximum(cands.length, 1)
@@ -163,8 +162,7 @@ def enumerate_candidates(slab, q, rec_dists, data, rank, sparse,
                          sublens: int = SUBLENS) -> Candidates:
     """Candidate set at the (clipped) site, minus the incumbent packet.
 
-    Pure enumeration — no probability reads — so it is cheap on the XLA
-    side even when the costing runs in the Pallas ranking kernel."""
+    Pure enumeration: no probability reads."""
     n = data.shape[0]
     qc = jnp.clip(q, 0, n - 1)
     cur_t, cur_d, cur_l, _ = P.unpack(slab[qc])
@@ -182,12 +180,12 @@ def select_mutation(slab, q, rec_dists, cands: Candidates, metric, key,
     """Boundary move or biased top-K resample; returns the two mutated
     cell values (v0 at qc, v1 at qc+1) WITHOUT writing the slab.
 
-    The fused v2 kernel substitutes these in-stream while it walks the
-    slab (an XLA scatter over [C, n] per pass was a measurable slice of
-    iteration time); apply_move below is the scatter form for the
-    XLA/v1 paths.  v0/v1 reproduce the historical double-write
-    semantics exactly, including the qc == n-1 case where the second
-    write lands on the same cell and reverts the mutation."""
+    The walk kernel (ops/repair_walk.py) substitutes these while it
+    reads the slab, which saves a [C, n] scatter per pass; apply_cells
+    below is the scatter form for the XLA path.  v0/v1 reproduce the
+    historical double-write semantics exactly, including the qc == n-1
+    case where the second write lands on the same cell and reverts the
+    mutation."""
     n = data.shape[0]
     qc = jnp.clip(q, 0, n - 1)
     cur_t, cur_d, cur_l, _ = P.unpack(slab[qc])
@@ -240,24 +238,22 @@ def select_mutation(slab, q, rec_dists, cands: Candidates, metric, key,
     return v0, new_q1
 
 
-def apply_move(slab, q, rec_dists, cands: Candidates, metric, key, data,
-               top_k=20):
-    """Scatter form of select_mutation (XLA / v1-kernel paths)."""
-    n = data.shape[0]
+def apply_cells(slab, q, v0, v1):
+    """Scatter the two mutated cells of select_mutation into the slab."""
+    n = slab.shape[0]
     qc = jnp.clip(q, 0, n - 1)
-    v0, v1 = select_mutation(slab, q, rec_dists, cands, metric, key, data,
-                             top_k=top_k)
     has_next = qc + 1 < n
     slab = slab.at[qc].set(v0)
-    slab = slab.at[jnp.clip(qc + 1, 0, n - 1)].set(
+    return slab.at[jnp.clip(qc + 1, 0, n - 1)].set(
         jnp.where(has_next, v1, v0))
-    return slab
 
 
-def propose(slab, q, rec_ctx, rec_dists, rank_probs, data, rank, sparse,
-            cand_dist, cand_len, cand_count, key, log2, f2p, top_k=20,
-            sublens=SUBLENS, lc: int = 0):
-    """Generate one mutated slab for the chain (XLA ranking path)."""
+def propose_cells(slab, q, rec_ctx, rec_dists, rank_probs, data, rank,
+                  sparse, cand_dist, cand_len, cand_count, key, log2,
+                  top_k=20, sublens=SUBLENS, lc: int = 0):
+    """One proposed mutation for the chain: enumerate the candidates at
+    the site, rank them under the chain's snapshot probabilities, and
+    pick the move.  Returns the two mutated cells (select_mutation)."""
     n = data.shape[0]
     qc = jnp.clip(q, 0, n - 1)
     cands = enumerate_candidates(slab, q, rec_dists, data, rank, sparse,
@@ -267,6 +263,6 @@ def propose(slab, q, rec_ctx, rec_dists, rank_probs, data, rank, sparse,
     mb = data[jnp.clip(qc - rec_dists[0] - 1, 0, n - 1)]
     prev = jnp.where(qc > 0, data[jnp.maximum(qc - 1, 0)], 0)
     metric = rank_candidates(cands, rank_probs, rec_ctx, rec_dists, byte,
-                             mb, log2, f2p, prev_byte=prev, lc=lc)
-    return apply_move(slab, q, rec_dists, cands, metric, key, data,
-                      top_k=top_k)
+                             mb, log2, prev_byte=prev, lc=lc)
+    return select_mutation(slab, q, rec_dists, cands, metric, key, data,
+                           top_k=top_k)

@@ -33,7 +33,7 @@ def _progress_printer(t0):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="megalania-tpu")
-    ap.add_argument("--platform", default=None, choices=["cpu", "tpu"],
+    ap.add_argument("--platform", default=None, choices=["cpu", "gpu"],
                     help="force the JAX backend (some environments ignore "
                     "JAX_PLATFORMS; this uses jax.config, which always works)")
     ap.add_argument("--distributed", action="store_true",
@@ -49,12 +49,7 @@ def main(argv=None):
     c.add_argument("-o", "--output", default="-")
     c.add_argument("--chains", type=int, default=128,
                    help="parallel annealing chains (128 = the measured "
-                   "ratio/speed sweet spot at matched budgets: deep "
-                   "enough chains, Pallas-kernel capable)")
-    c.add_argument("--chain-block", type=int, default=0,
-                   help="chains per kernel grid step (0 = auto: widest "
-                   "of 512/384/256/128 dividing --chains; wide lane "
-                   "blocks are nearly free on the VPU)")
+                   "ratio sweet spot at matched budgets)")
     c.add_argument("--block-size", type=int, default=1 << 16)
     c.add_argument("--moves", type=int, default=None,
                    help="total anneal moves (default: reference budget; "
@@ -86,20 +81,14 @@ def main(argv=None):
                    help="price-snapshot window bytes (0 = sweep "
                    "{256,512,1024} and keep the exact-cost best)")
     c.add_argument("--lc", type=int, default=0,
-                   help="literal context bits (xz defaults to 3; the "
-                   "reference only supports 0). lc<=2 still runs the "
-                   "Pallas kernels; lc>=3 falls back to the XLA path "
-                   "(the widened literal class exceeds the TPU "
-                   "kernel's compiled-size limit)")
+                   help="literal context bits, 0..4 (xz defaults to 3; "
+                   "the reference only supports 0)")
     c.add_argument("--seed", type=int, default=1673551)
     c.add_argument("--quiet", action="store_true")
     c.add_argument("--kernel", default="auto",
-                   choices=["auto", "xla", "pallas2"],
-                   help="fused-pass kernel (auto: pick per backend)")
-    c.add_argument("--ranker", default="auto",
-                   choices=["auto", "kernel", "xla"],
-                   help="candidate-costing backend (auto: Pallas ranking "
-                   "kernel whenever the v2 fused kernel runs)")
+                   choices=["auto", "xla", "cuda"],
+                   help="fused repair+cost kernel (auto: the CUDA walk "
+                   "on a GPU, the XLA scan elsewhere)")
     c.add_argument("--site-mode", default="byte",
                    choices=["byte", "packet"],
                    help="mutation-site distribution (packet = the "
@@ -140,21 +129,18 @@ def main(argv=None):
     if args.platform:
         import jax
         jax.config.update("jax_platforms", args.platform)
+    from .utils import compile_cache
+    compile_cache.enable()
     if args.distributed:
         from .parallel import multihost
         multihost.initialize()
 
     if args.cmd == "compress":
         data = open(args.file, "rb").read()
-        cb = args.chain_block or (
-            max(d for d in (512, 384, 256, 128) if args.chains % d == 0)
-            if args.chains % 128 == 0 else 128)
-        if args.lc and not args.chain_block:
-            cb = min(cb, 128)   # lc widens the literal class (VMEM)
         cfg = AnnealConfig(
-            chains=args.chains, chain_block=cb, block_size=args.block_size,
+            chains=args.chains, block_size=args.block_size,
             top_k=args.top_k, seed=args.seed, kernel=args.kernel,
-            ranker=args.ranker, proposals=args.proposals,
+            proposals=args.proposals,
             site_mode=args.site_mode, lrep_fallback=args.lrep_fallback,
             sublens=args.sublens, init=args.init,
             site_schedule=args.site_schedule, lc=args.lc,

@@ -3,7 +3,7 @@
 The reference enumerates every earlier occurrence of the current bigram
 through callback iterators (/root/reference/src/substring_enumerator.c,
 packet_enumerator.c) — unbounded, data-dependent work per query.  The
-TPU-native replacement precomputes, once per block, a dense [n, M] table
+replacement here precomputes, once per block, a dense [n, M] table
 of Pareto-optimal (dist, len) candidates: walking occurrences nearest
 first, an occurrence enters the table only if it extends further than
 every nearer one (a farther, shorter match is dominated: same length is

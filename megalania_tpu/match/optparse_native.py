@@ -10,12 +10,12 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 from functools import lru_cache
 
 import numpy as np
 
 from ..ops import tables as T
+from ..utils import native_build
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "runtime",
                            "native")
@@ -38,13 +38,10 @@ _U32P = ctypes.POINTER(ctypes.c_uint32)
 @lru_cache(maxsize=1)
 def _load():
     """Load (building if needed) the native library; None on failure."""
-    if not os.path.exists(_LIB_PATH):
-        try:
-            subprocess.run(["make", "-C", _NATIVE_DIR, "-s",
-                            "libmeg_opt.so"],
-                           check=True, capture_output=True)
-        except (OSError, subprocess.CalledProcessError):
-            return None
+    try:
+        native_build.make(_NATIVE_DIR, "libmeg_opt.so")
+    except (OSError, RuntimeError):
+        return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
     except OSError:

@@ -2,7 +2,7 @@
 
 The reference walks byte-by-byte to extend matches
 (/root/reference/src/substring_enumerator.c:85-105) — a data-dependent
-loop that cannot live inside a TPU scan.  Instead we precompute, per
+loop that cannot live inside a device scan.  Instead we precompute, per
 block, the classic SA + LCP + sparse-table-RMQ structure so that
 lce(a, b) = length of the longest common prefix of data[a:] and data[b:]
 is a handful of gathers — usable both in host numpy (candidate-table

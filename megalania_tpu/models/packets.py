@@ -1,8 +1,8 @@
 """Packed packet representation.
 
 The annealing genome ("slab", reference: /root/reference/src/packet_slab.h:5)
-is one packet per byte position.  TPU-side we pack each packet into a single
-uint32 so a whole slab is one dense [n] vector:
+is one packet per byte position.  On the device each packet is packed into
+a single uint32 so a whole slab is one dense [n] vector:
 
     bits  0..19  dist   (MATCH: distance-1; LREP: rep-stack index 0..3)
     bits 20..28  len    (1..273)

@@ -1,10 +1,10 @@
-"""Per-packet bit-op compilation: the TPU-native packet encoder.
+"""Per-packet bit-op compilation: the vectorized packet encoder.
 
 The reference encodes a packet by calling an encoder vtable once per bit
 (/root/reference/src/lzma_packet_encoder.c).  Key observation enabling the
-TPU design: within a single packet, every adaptive bit touches a *distinct*
-probability slot (bit-tree node indices strictly grow; header/len/dist
-groups are disjoint arrays).  A packet therefore compiles to a fixed-width
+device design: within a single packet, every adaptive bit touches a
+*distinct* probability slot (bit-tree node indices strictly grow;
+header/len/dist groups are disjoint arrays).  A packet therefore compiles to a fixed-width
 vector of NSLOTS (slot, bit, active) triples plus a direct-bits count —
 one gather + one scatter per packet, fully vectorizable over chains.
 
@@ -208,22 +208,6 @@ def plan_cost(probs, plan: BitPlan, log2, lc: int = 0):
     """
     safe = jnp.where(plan.active, plan.idx, T.dead_slot(lc))
     p = probs[safe]
-    c = log2[jnp.where(plan.bit == 1, T.PROB_ONE - p, p)]
-    return jnp.sum(jnp.where(plan.active, c, 0)) + (plan.n_direct << T.PROB_BITS)
-
-
-def plan_cost_packed(packed, plan: BitPlan, log2, f2p, lc: int = 0):
-    """plan_cost against the class-packed probability layout.
-
-    `packed`: [PACKED_ROWS] per-chain vector (ops/problayout.py);
-    `f2p`: flat-slot -> packed-row map over PROBS_PAD (problayout.
-    F2P_PAD), passed as a traced argument like log2.  Slots that map to
-    -1 (alignment pads, DEAD_SLOT) read PROB_INIT — they are always
-    masked inactive, the value only keeps the gather in bounds.
-    """
-    safe = jnp.where(plan.active, plan.idx, T.dead_slot(lc))
-    row = f2p[safe]
-    p = jnp.where(row >= 0, packed[jnp.maximum(row, 0)], T.PROB_INIT)
     c = log2[jnp.where(plan.bit == 1, T.PROB_ONE - p, p)]
     return jnp.sum(jnp.where(plan.active, c, 0)) + (plan.n_direct << T.PROB_BITS)
 

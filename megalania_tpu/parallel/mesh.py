@@ -1,12 +1,12 @@
-"""Device-mesh scale-out: blocks x chains over (dcn|ici) axes.
+"""Device-mesh scale-out: blocks x chains over two mesh axes.
 
-The reference has no parallelism (SURVEY.md §2: none exists).  The
-TPU-native scale-out story (BASELINE.json configs 3-5) is:
+The reference has no parallelism (SURVEY.md §2: none exists).  The mesh
+follows the algorithm (the GPUs of a host are joined all to all):
 
-  * axis "block": independent LZMA blocks, data-parallel (DCN-friendly —
-    zero communication between blocks except the final ordered gather);
-  * axis "chain": annealing chains of one block spread over chips
-    (ICI-friendly — per-move argmin-all-reduce of the best parse).
+  * axis "block": independent LZMA blocks, data-parallel (no
+    communication between blocks except the final ordered gather);
+  * axis "chain": annealing chains of one block spread over devices
+    (a per-move argmin-all-reduce of the best parse).
 
 `sharded_step` shard_maps the single-block iteration over both axes; the
 cross-device best exchange rides all_gathers on the chain axis.
@@ -31,7 +31,7 @@ CHAIN_AXIS = "chain"
 
 
 def make_mesh(n_blocks: int = 1, devices: Sequence | None = None) -> Mesh:
-    """Mesh over available devices: blocks outer (DCN), chains inner (ICI).
+    """Mesh over available devices: blocks outer, chains inner.
 
     The block-axis size must divide both the device count (mesh shape)
     and n_blocks (even sharding of the stacked block dimension)."""
@@ -61,11 +61,11 @@ def _local_step(state: engine.AnnealState, ctx: engine.BlockContext,
                 cfg: AnnealConfig, n_iters: int) -> engine.AnnealState:
     """n_iters iterations on the local chain shard + best exchange.
 
-    Per move only the (hi, lo) SCALARS ride the ICI; the [n]-sized slab
+    Per move only the (hi, lo) SCALARS cross devices; the [n]-sized slab
     all_gather runs just once up front (to replicate the best across the
     shard) and then only on iterations where the global best actually
-    improves (VERDICT r2 weak #4: the unconditional per-move slab gather
-    was 256 KiB x devices x move at n=65536).  The improvement predicate
+    improves (an unconditional per-move slab gather would move
+    256 KiB x devices per move at n=65536).  The improvement predicate
     is replicated — every device computes it from all-gathered scalars
     against the replicated previous global best — so the conditional
     collective branches identically everywhere."""
@@ -135,21 +135,16 @@ def sharded_step(mesh: Mesh, cfg: AnnealConfig, n_iters: int):
         data=PSpec(BLOCK_AXIS), rank=PSpec(BLOCK_AXIS),
         sparse=PSpec(BLOCK_AXIS), cand_dist=PSpec(BLOCK_AXIS),
         cand_len=PSpec(BLOCK_AXIS), cand_count=PSpec(BLOCK_AXIS),
-        # log2/corr are stacked per block like the rest of the context so
-        # the inner vmap sees uniform leading dims; XLA dedups the copies
+        # log2 is stacked per block like the rest of the context so the
+        # inner map sees uniform leading dims
         log2=PSpec(BLOCK_AXIS),
-        data_packed=PSpec(BLOCK_AXIS),
-        corr=PSpec(BLOCK_AXIS),
-        f2p=PSpec(BLOCK_AXIS),
         init_slab=PSpec(BLOCK_AXIS),
     )
 
     def per_block(state, ctx):
         # inside shard_map: leading block dim is the local shard (size
         # B/b).  lax.map (not vmap) over it: a device runs its blocks
-        # sequentially — matching its real capacity — and the Pallas
-        # kernel is never batched (its small-sublane BlockSpecs don't
-        # admit a vmap batch dimension).
+        # one after another, and the walk kernel is never batched.
         return jax.lax.map(
             lambda sc: _local_step(sc[0], sc[1], cfg, n_iters),
             (state, ctx))

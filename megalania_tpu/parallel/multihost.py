@@ -1,10 +1,10 @@
 """Multi-host bring-up + the ordered ragged stream gather (SURVEY §5.8).
 
 The reference has no communication backend at all (SURVEY.md §2:
-includes are libc-only).  The TPU-native scale-out uses:
+includes are libc-only).  The multi-host scale-out uses:
 
-  * `jax.distributed.initialize` for process bootstrap (DCN),
-  * mesh axes {block: DCN, chain: ICI} from parallel/mesh.py,
+  * `jax.distributed.initialize` for process bootstrap,
+  * mesh axes {block, chain} from parallel/mesh.py,
   * and — the one genuinely new communication pattern — an ORDERED
     gather of variable-length range-coded block streams to host 0.
 
@@ -14,7 +14,7 @@ true lengths over the process group, and host 0 reassembles in block
 order.  Collectives ride `jax.experimental.multihost_utils`, which
 degrades to identity in a single process — so the same code path runs
 everywhere (unit tests exercise it on one process; real multi-host runs
-exercise the same calls over DCN).
+exercise the same calls across hosts).
 """
 from __future__ import annotations
 
@@ -64,7 +64,7 @@ def gather_streams(local: Dict[int, bytes], n_blocks: int) -> List[bytes]:
     Every process calls this; every process returns the same ordered
     list (all-gather semantics), so host 0 can write the container and
     the others can verify.  Pads to the global max stream length — the
-    only dense-shape-friendly way to move ragged bytes over DCN
+    only dense-shape-friendly way to move ragged bytes through
     collectives — then trims by the gathered true lengths.
     """
     import jax

@@ -9,13 +9,13 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 from functools import lru_cache
 
 import numpy as np
 import jax.numpy as jnp
 
 from ..ops import bitplan, emit_plan, tables as T
+from ..utils import native_build
 from . import pyemit
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "native")
@@ -25,15 +25,10 @@ _LIB_PATH = os.path.join(_NATIVE_DIR, "libmeg_emit.so")
 @lru_cache(maxsize=1)
 def _load_native():
     """Load (building if needed) the native emitter; None on failure."""
-    if not os.path.exists(_LIB_PATH):
-        try:
-            subprocess.run(
-                ["make", "-C", _NATIVE_DIR, "-s"],
-                check=True,
-                capture_output=True,
-            )
-        except (OSError, subprocess.CalledProcessError):
-            return None
+    try:
+        native_build.make(_NATIVE_DIR, "libmeg_emit.so")
+    except (OSError, RuntimeError):
+        return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
     except OSError:

@@ -1,6 +1,6 @@
 // Native op-stream emitter: adaptive probability model + LZMA range coder.
 //
-// The TPU side compiles the winning parse into a dense op stream
+// The device side compiles the winning parse into a dense op stream
 // (per-position fixed-width arrays of (prob-slot, bit, active) plus a
 // direct-bits record); this translation unit replays that stream through
 // a carry-exact binary range coder.  It is deliberately oblivious to the

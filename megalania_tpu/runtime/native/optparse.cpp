@@ -1,7 +1,7 @@
 // Native optimum-parse engine: rep-aware exact-ctx-state Viterbi DP +
 // an exact adaptive cost/train pass.
 //
-// This is the host-side seed generator for the TPU annealer.  The
+// This is the host-side seed generator for the device annealer.  The
 // reference has nothing like it (it can only seed from all-literals,
 // /root/reference/src/packet_slab.c:30-32); quality bar is xz's optimum
 // encoder: per-node state = (exact LZMA ctx_state 0..11, 4-deep rep

@@ -1,8 +1,8 @@
 """64-bit fixed-point cost carried as an (hi, lo) int32 pair.
 
-Costs are bits<<11; a 1 MiB block can exceed 2**31, and enabling global
-x64 in JAX is undesirable on TPU, so totals are held as hi*2**16 + lo with
-0 <= lo < 2**16 after normalization.
+Costs are bits<<11; a 1 MiB block can exceed 2**31, and the program keeps
+JAX's default 32-bit types (no global x64), so totals are held as
+hi*2**16 + lo with 0 <= lo < 2**16 after normalization.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""lc>0 literal-context model (VERDICT r3 item 8).
+"""lc>0 literal-context model.
 
 The reference hardcodes lc=0 with a todo
 (/root/reference/src/lzma_packet_encoder.c:113); xz's default is lc=3 —

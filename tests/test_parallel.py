@@ -75,7 +75,7 @@ def test_multihost_single_process():
 
 
 def test_mesh_exchange_no_per_move_slab_gather():
-    """VERDICT r2 weak #4: the per-move best exchange must move only
+    """The per-move best exchange must move only
     (hi, lo) scalars; the [n]-sized slab all_gather may appear once
     before the loop and inside the improvement conditional, never
     unconditionally in the loop body."""
@@ -109,7 +109,7 @@ def test_mesh_exchange_no_per_move_slab_gather():
 
 def test_multihost_two_processes(tmp_path):
     """The ragged ordered gather over a REAL 2-process jax.distributed
-    group (VERDICT r2 weak #5: the pad/allgather/merge path had only
+    group (the pad/allgather/merge path had only
     ever run through its single-process identity branch)."""
     import os
     import socket
@@ -137,7 +137,7 @@ def test_multihost_two_processes(tmp_path):
 
 
 def test_mesh_trajectory_matches_single_device():
-    """ADVICE r3: execute sharded_step (not just inspect its HLO) and
+    """Execute sharded_step (not just inspect its HLO) and
     check the mesh trajectory — best cost/slab and per-chain state —
     is bit-identical to the single-device engine.run_iters trajectory,
     which also pins the replicated-predicate invariant of the
@@ -172,7 +172,7 @@ def test_mesh_trajectory_matches_single_device():
 
 
 def test_mesh_resume_after_partial(tmp_path, monkeypatch):
-    """VERDICT r3 weak #5: resume a mesh run after SOME blocks already
+    """Resume a mesh run after SOME blocks already
     have their block{bi}.lzma — the saved stack is keyed by block ids
     and re-sliced to the shrunken todo list; the final container must be
     bit-identical to an uninterrupted run."""

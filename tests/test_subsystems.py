@@ -1,6 +1,6 @@
 """Aux subsystems as wired into the product (SURVEY.md §5.3-5.5):
-checkpoint/resume through compress_block, elastic per-block recovery,
-metrics, config guards, exact fixed-point argmin."""
+checkpoint/resume through compress_block, failures that raise, metrics,
+config guards, exact fixed-point argmin, the compile-cache helper."""
 import lzma
 import os
 
@@ -55,22 +55,68 @@ def test_resume_bit_identical(cfg, tmp_path):
     assert lzma.decompress(resumed, format=lzma.FORMAT_ALONE) == DATA
 
 
-def test_elastic_fallback_recovers(cfg, tmp_path, monkeypatch):
-    """A block whose kernel raises is requeued on the XLA fallback and
-    the container still round-trips (SURVEY.md §5.3)."""
+def test_failing_block_raises(cfg, monkeypatch):
+    """A block that fails raises out of compress: it is not retried on
+    another kernel behind the caller's back."""
     calls = {"n": 0}
-    real = compressor.compress_block
 
-    def flaky(data, bcfg, *a, **k):
+    def broken(*a, **k):
         calls["n"] += 1
-        if bcfg.kernel != "xla":
-            raise RuntimeError("injected Mosaic failure")
-        return real(data, bcfg, *a, **k)
+        raise RuntimeError("injected kernel failure")
 
-    monkeypatch.setattr(compressor, "compress_block", flaky)
-    blob = compressor.compress(DATA, cfg, total_moves=8 * 8)
-    assert calls["n"] == 2  # first attempt failed, retry succeeded
-    assert compressor.decompress(blob) == DATA
+    monkeypatch.setattr(compressor, "compress_block", broken)
+    with pytest.raises(RuntimeError, match="injected kernel failure"):
+        compressor.compress(DATA, cfg, total_moves=8 * 8)
+    assert calls["n"] == 1
+
+
+def test_failing_mesh_path_raises(cfg, monkeypatch):
+    """With several devices and full blocks, a mesh failure raises
+    instead of silently re-running block by block."""
+    import dataclasses
+    import jax
+    assert len(jax.devices()) > 1
+    calls = {"mesh": 0, "block": 0}
+
+    def broken_mesh(*a, **k):
+        calls["mesh"] += 1
+        raise RuntimeError("injected mesh failure")
+
+    def block(*a, **k):
+        calls["block"] += 1
+        raise AssertionError("per-block path must not run")
+
+    monkeypatch.setattr(compressor, "_compress_blocks_mesh", broken_mesh)
+    monkeypatch.setattr(compressor, "compress_block", block)
+    bcfg = dataclasses.replace(cfg, block_size=64)
+    with pytest.raises(RuntimeError, match="injected mesh failure"):
+        compressor.compress(DATA[:128], bcfg, total_moves=8 * 8)
+    assert calls == {"mesh": 1, "block": 0}
+
+
+def test_compile_cache_honours_env(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR, when set, is the cache and nothing else
+    is configured; unset, the cache is the checkout's fixed directory."""
+    import jax
+    from megalania_tpu.utils import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        monkeypatch.setenv(compile_cache.ENV, str(tmp_path))
+        jax.config.update("jax_compilation_cache_dir", None)
+        assert compile_cache.enable() == str(tmp_path)
+        assert jax.config.jax_compilation_cache_dir is None
+
+        monkeypatch.delenv(compile_cache.ENV)
+        got = compile_cache.enable()
+        assert got == compile_cache.DEFAULT_DIR
+        assert jax.config.jax_compilation_cache_dir == got
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert got == os.path.join(root, ".jax_cache")
+        ignored = open(os.path.join(root, ".gitignore")).read().split()
+        assert ".jax_cache/" in ignored
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
 
 
 def test_metrics_jsonl(cfg, tmp_path):
@@ -91,9 +137,9 @@ def test_config_guards():
     with pytest.raises(ValueError):
         AnnealConfig(block_size=(64 << 20) + 1)  # > MAX_WIDE_BLOCK
     with pytest.raises(ValueError):
-        AnnealConfig(chain_block=12)             # not sublane multiple
-    with pytest.raises(ValueError):
-        AnnealConfig(kernel="cuda")
+        AnnealConfig(kernel="pallas2")           # a retired kernel name
+    with pytest.raises(TypeError):
+        AnnealConfig(ranker="kernel")            # option removed
 
 
 def test_fp_argmin_exact():
@@ -110,7 +156,7 @@ def test_fp_argmin_exact():
 
 
 def test_checkpoint_forward_compat(cfg, tmp_path):
-    """ADVICE r3: an npz written before AnnealState grew the sweep
+    """An npz written before AnnealState grew the sweep
     fields must still load (safe defaults, sweep_j=0 forces a fresh
     full-walk re-cost); one missing REQUIRED array must raise a clear
     incompatibility error, not a bare KeyError."""
